@@ -18,9 +18,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.utils.summary import summarize_params
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.utils.summary import summarize_params
 
 
 def main(argv=None):

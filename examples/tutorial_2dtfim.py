@@ -16,10 +16,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from rnnwavefunctions_tpu import (
+from rnnwavefunctions import (
     MDRNN2D, PRNNSnake2D, TFIM2D, TrainConfig, VMCTrainer,
 )
-from rnnwavefunctions_tpu.ed import exact
+from rnnwavefunctions.ed import exact
 
 
 def main(argv=None):

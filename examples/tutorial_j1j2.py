@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from rnnwavefunctions_tpu import CRNNU1, J1J2, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.ed import exact
+from rnnwavefunctions import CRNNU1, J1J2, TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
 
 
 def main(argv=None):

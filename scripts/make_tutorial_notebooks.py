@@ -43,7 +43,7 @@ def notebook(cells):
 
 COMMON_SETUP = """\
 import os, sys
-if os.path.exists(os.path.join("..", "rnnwavefunctions_tpu")):
+if os.path.exists(os.path.join("..", "rnnwavefunctions")):
     sys.path.insert(0, "..")  # running from examples/
 
 import jax
@@ -61,7 +61,7 @@ TFIM_CELLS = [
 **This notebook walks through the full workflow of finding a quantum
 many-body ground state with an RNN wavefunction trained by Variational
 Monte Carlo (VMC), validated against Exact Diagonalization (ED).**  It is
-the TPU-native equivalent of the reference tutorial
+the JAX counterpart of the reference tutorial
 (`Tutorials/1DTFIM/Tutorial_1DTFIM.ipynb`, Hibat-Allah et al., Phys. Rev.
 Research 2, 023358 (2020)).
 
@@ -84,15 +84,15 @@ You will:
    by VMC and compare against ED,
 4. see where the DMRG anchors for large $N$ live for production runs.
 
-On a TPU the whole VMC step (autoregressive sampling, all $N$ spin-flip
-amplitude ratios, gradient, Adam update) runs as fused Pallas kernels
-inside one jitted program; on CPU the very same API runs the `lax.scan`
-reference path — this notebook runs anywhere.
+The whole VMC step (autoregressive sampling, all $N$ spin-flip amplitude
+ratios, gradient, Adam update) runs inside one jitted program; on a GPU
+the GRU rollouts take a Pallas kernel, on the CPU the very same API runs
+the `lax.scan` reference path — this notebook runs anywhere.
 """),
     code(COMMON_SETUP + """\
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.vmc.observables import energy_estimate
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.vmc.observables import energy_estimate
 
 N = 10           # sites (keep <= 16: the ED oracle is dense 2^N)
 BX = 1.0         # transverse field (the critical point)
@@ -175,7 +175,7 @@ kills the gradient variance.  For the TFIM, $\\sigma'$ ranges over
 $\\sigma$ itself (diagonal bonds) plus the $N$ single-spin flips.
 
 Everything below — sampling, the $N{+}1$ amplitude evaluations, the
-gradient, the Adam update — is **one jitted TPU program per
+gradient, the Adam update — is **one jitted program per
 `run_steps` block**; the reference round-tripped every batch through host
 NumPy and chunked `sess.run` feeds.
 """),
@@ -251,7 +251,7 @@ wavefunction at once (dense $2^N$ basis, so small $N$ only — the reference
 notebooks stop at the energy comparison):
 """),
     code("""\
-from rnnwavefunctions_tpu.ed.fidelity import fidelity
+from rnnwavefunctions.ed.fidelity import fidelity
 
 F = fidelity(trainer.ansatz, state.params, gs)
 print(f"fidelity |<psi_theta|psi_0>|^2 = {F:.6f}")
@@ -276,8 +276,8 @@ For small $N$ we can check the estimator against the exact reduced density
 matrix of the ED ground state:
 """),
     code("""\
-from rnnwavefunctions_tpu.vmc.observables import renyi2_entropy
-from rnnwavefunctions_tpu.ed.exact import renyi2_exact
+from rnnwavefunctions.vmc.observables import renyi2_entropy
+from rnnwavefunctions.ed.exact import renyi2_exact
 
 region = list(range(N // 2))          # half-chain cut
 ka, kb = jax.random.split(jax.random.PRNGKey(7))
@@ -293,7 +293,7 @@ assert abs(s2_mc - s2_ed) < 0.15, "swap estimator far from the exact S2"
 (The estimator variance grows as $e^{S_2}$, so near-maximal entropies need
 large batches; at a half-chain cut of a critical chain this size is cheap.
 From a trained checkpoint the same measurement is
-`python -m rnnwavefunctions_tpu.cli.evaluate --observables renyi2`.)
+`python -m rnnwavefunctions.cli.evaluate --observables renyi2`.)
 """),
     md("""\
 ### Faster convergence: stochastic reconfiguration (minSR)
@@ -333,9 +333,8 @@ assert err_minsr < err_adam, "minSR should outpace Adam step-for-step"
 """),
     md("""\
 (minSR typically buys an order of magnitude fewer steps per error decade;
-per-step cost is higher — the per-sample jacobian — so on TPU the
-wall-clock win at the N=20 reference workload is ~3x to the 1e-3
-threshold, BENCHMARKS.md.  From the CLI: `--optimizer minsr`.)
+per-step cost is higher — the per-sample jacobian — so compare
+wall-clock too before choosing it.  From the CLI: `--optimizer minsr`.)
 """),
     md("""\
 ## Explorations
@@ -351,7 +350,7 @@ threshold, BENCHMARKS.md.  From the CLI: `--optimizer minsr`.)
   $B_x$.
 - **Large systems.**  The pRNN cost is linear in $N$.  DMRG ground-state
   energies for validating production runs
-  (`python -m rnnwavefunctions_tpu.cli.run_1dtfim --systemsize 100 ...`):
+  (`python -m rnnwavefunctions.cli.run_1dtfim --systemsize 100 ...`):
 
 | N | E(DMRG) |
 |---|---------|
@@ -366,12 +365,9 @@ threshold, BENCHMARKS.md.  From the CLI: `--optimizer minsr`.)
 | 100 | -126.9618766964 |
 | 1000 | -1272.8762945220 |
 
-  Measured in this repo (BENCHMARKS.md): N=100 converges to rel. error
-  3.1e-5 in 8000 steps (~26 s on one v5e chip); N=1000 rides the
-  HBM-spilled fused kernels to 5.7e-5.
 - **Scale out.**  `--tp` shards the hidden dimension (Megatron-style) and
   the trainer data-parallelizes chains over any `jax.sharding.Mesh` —
-  see `parallel/` and the multi-chip section of the README.
+  see `parallel/` and the "Parallelism" paragraph of the README.
 """),
 ]
 
@@ -382,7 +378,7 @@ J1J2_CELLS = [
     md("""\
 **This notebook extends the TFIM tutorial to a *frustrated* spin model
 whose ground state has a non-trivial sign structure**, requiring a
-*complex* RNN wavefunction (cRNN).  It is the TPU-native equivalent of the
+*complex* RNN wavefunction (cRNN).  It is the JAX counterpart of the
 reference tutorial (`Tutorials/J1J2/Tutorial_1DJ1J2.ipynb`).
 
 The model is the spin-$\\tfrac12$ **J1-J2 Heisenberg chain**
@@ -406,9 +402,9 @@ You will:
    constraint and compare against ED.
 """),
     code(COMMON_SETUP + """\
-from rnnwavefunctions_tpu import CRNNU1, J1J2, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.vmc.observables import energy_estimate
+from rnnwavefunctions import CRNNU1, J1J2, TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.vmc.observables import energy_estimate
 
 N = 10
 J2 = 0.2
@@ -477,10 +473,9 @@ $2\\,\\mathrm{Re}\\!\\left[\\mathrm{mean}(\\overline{\\log\\psi}\\,E_{loc})
 - \\overline{\\mathrm{mean}(\\log\\psi)}\\,\\mathrm{mean}(E_{loc})\\right]$
 with $E_{loc}$ held out of the differentiation.  The local energies
 contract all $\\le 2N$ spin-exchange configurations per sample in-graph —
-padded to a static bound with validity masks, TPU-style (on TPU: a single
-fused wavefront kernel that also draws the samples).  The TPU backend has
-no complex dtype, so the entire hot path carries (Re, Im) pairs of reals —
-mathematically identical, MXU-friendly.
+padded to a static bound with validity masks, so every array has a static
+shape.  The entire hot path carries log psi as (Re, Im) pairs of reals
+instead of complex numbers — mathematically identical.
 """),
     code("""\
 trainer = VMCTrainer(
@@ -557,7 +552,7 @@ it sees the **phases**, which the energy estimate only samples indirectly.
 sector, like the exact ground state.)
 """),
     code("""\
-from rnnwavefunctions_tpu.ed.fidelity import fidelity
+from rnnwavefunctions.ed.fidelity import fidelity
 
 F = fidelity(trainer.ansatz, state.params, gs)
 print(f"fidelity |<psi_theta|psi_0>|^2 = {F:.6f}")
@@ -574,7 +569,7 @@ assert 0.0 < F <= 1.0 + 1e-9
   against the plain cRNN: with the sign rule absorbed into the gauge, the
   wavefunction is positive and training converges markedly faster.
 - **Large systems.**  DMRG anchors at N=100 (reference notebook cell 25);
-  production runs via `python -m rnnwavefunctions_tpu.cli.run_j1j2`:
+  production runs via `python -m rnnwavefunctions.cli.run_j1j2`:
 
 | J2 | E(DMRG) |
 |----|---------|
@@ -583,11 +578,8 @@ assert 0.0 < F <= 1.0 + 1e-9
 | 0.5 | -37.5 (exact, Majumdar-Ghosh) |
 | 0.8 | -42.07006 |
 
-  Measured in this repo (BENCHMARKS.md): rel. error 6.5e-5 (J2=0) and
-  1.1e-4 (J2=0.2) with the 30k-step schedule.
 - **Periodic boundaries.**  `J1J2(..., periodic=True)` adds the wrap
-  bonds; the fused exchange kernel handles the wrap pair as a dedicated
-  wavefront block (`bench.py`'s `j1j2_n100_pbc` row).
+  bonds (`bench.py`'s `j1j2_n100_pbc` row).
 """),
 ]
 

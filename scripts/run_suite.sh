@@ -1,35 +1,19 @@
 #!/usr/bin/env bash
-# Canonical test-suite invocations (see CLAUDE.md "Commands").
-#
-# BOTH shards must be run as TWO halves: each half fits one `timeout 580`
-# on the 1-core box; a single invocation of either shard is one load spike
-# away from a false "hang" kill (the round-4 judge's fast run hit exit 143
-# at 580 s; split it ran 296 + 208 s).  This script encodes the split so a
-# fresh session can't foot-gun the timeout.
+# Canonical test-suite invocations on the CPU (see CLAUDE.md "Commands").
 #
 # Usage:
 #   scripts/run_suite.sh fast    # CPU 8-device mesh, -m "not slow"
-#   scripts/run_suite.sh slow    # both slow halves, sequentially
+#   scripts/run_suite.sh slow    # the long integration runs
 #   scripts/run_suite.sh all     # fast + slow
 set -u
 cd "$(dirname "$0")/.."
 
-FUSED_SLOW="tests/test_fused_gru.py tests/test_fused_crnn.py tests/test_fused_mdrnn.py tests/test_fused_bwd.py"
-
 run_fast() {
-  # Half 1: the four fused-kernel files' fast equality oracles.
-  timeout 580 python -m pytest $FUSED_SLOW -q -m "not slow" || return $?
-  # Half 2: everything else fast.
-  timeout 580 python -m pytest tests/ -q -m "not slow" \
-    $(for f in $FUSED_SLOW; do printf -- "--ignore=%s " "$f"; done)
+  timeout 1200 python -m pytest tests/ -q -m "not slow" -n 6
 }
 
 run_slow() {
-  # Half 1: the four fused-kernel files' slow capacity variants.
-  timeout 580 python -m pytest $FUSED_SLOW -q -m slow || return $?
-  # Half 2: everything else marked slow (tutorials, multihost, trainer e2e).
-  timeout 580 python -m pytest tests/ -q -m slow \
-    $(for f in $FUSED_SLOW; do printf -- "--ignore=%s " "$f"; done)
+  timeout 3600 python -m pytest tests/ -q -m slow -n 6
 }
 
 case "${1:-fast}" in

@@ -1,4 +1,4 @@
-"""Accuracy-anchor validation harness (run on real TPU hardware).
+"""Accuracy-anchor validation harness (run it on a GPU).
 
 Trains the flagship configurations against the published ground-truth
 energies from the reference tutorials (BASELINE.md): DMRG values for the 1D
@@ -10,7 +10,6 @@ Usage:  python scripts/validate_anchors.py [--quick]
 """
 
 import argparse
-import functools
 import json
 import os
 import sys
@@ -21,10 +20,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import numpy as np
 
-from rnnwavefunctions_tpu import (
+from rnnwavefunctions import (
     CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer,
 )
-from rnnwavefunctions_tpu.vmc.observables import energy_estimate
+from rnnwavefunctions.vmc.observables import energy_estimate
 
 # DMRG anchors from Tutorials/1DTFIM/Tutorial_1DTFIM.ipynb cell 24 and
 # Tutorials/J1J2/Tutorial_1DJ1J2.ipynb cell 25 (BASELINE.md).
@@ -77,13 +76,13 @@ def fidelity_check(n=20, steps=3000, num_samples=500):
     """Train the N-site TFIM chain and report |<psi_theta|psi_0>|^2 against
     the exact ground vector (dense eigh to N=16, the C++ two-pass Lanczos
     beyond) — the whole-wavefunction counterpart to the energy anchors."""
-    from rnnwavefunctions_tpu.ed.fidelity import fidelity
+    from rnnwavefunctions.ed.fidelity import fidelity
 
     if n <= 16:
-        from rnnwavefunctions_tpu.ed import exact
+        from rnnwavefunctions.ed import exact
         e0, gs = exact.ground_state(exact.tfim1d_dense(n, 1.0))
     else:
-        from rnnwavefunctions_tpu.ed import native
+        from rnnwavefunctions.ed import native
         e0, gs, _resid = native.tfim1d_ground_state(n, 1.0)
 
     ansatz = PRNN1D(num_sites=n, units=(50,))
@@ -111,7 +110,7 @@ def fidelity_check(n=20, steps=3000, num_samples=500):
 
 
 def entanglement_check(n=16, steps=3000, num_samples=512, rounds=16):
-    """Train the N-site critical TFIM chain on-chip, then validate the
+    """Train the N-site critical TFIM chain on the device, then validate the
     swap-trick Renyi-2 estimator at every left-block cut against (a) the
     exact S2 of the ansatz's own state (estimator correctness, via the
     renormalized ``amplitude_table``) and (b) the exact ground state's S2
@@ -120,15 +119,14 @@ def entanglement_check(n=16, steps=3000, num_samples=512, rounds=16):
     repository ships no estimator.  One JSON line per cut."""
     import jax.numpy as jnp
 
-    from rnnwavefunctions_tpu.ed import exact
-    from rnnwavefunctions_tpu.ed.fidelity import amplitude_table
-    from rnnwavefunctions_tpu.ops.tiling import tpu_compiler_options
-    from rnnwavefunctions_tpu.vmc import observables
+    from rnnwavefunctions.ed import exact
+    from rnnwavefunctions.ed.fidelity import amplitude_table
+    from rnnwavefunctions.vmc import observables
 
     if n <= 14:
         _e0, gs = exact.ground_state(exact.tfim1d_dense(n, 1.0))
     else:
-        from rnnwavefunctions_tpu.ed import native
+        from rnnwavefunctions.ed import native
 
         _e0, gs, _resid = native.tfim1d_ground_state(n, 1.0)
 
@@ -142,9 +140,7 @@ def entanglement_check(n=16, steps=3000, num_samples=512, rounds=16):
     vec = amplitude_table(ansatz, state.params, n)
 
     def make_round(region):
-        @functools.partial(
-            jax.jit, compiler_options=tpu_compiler_options()
-        )
+        @jax.jit
         def round_purity(params, key):
             ka, kb = jax.random.split(key)
             sa = ansatz.sample(params, ka, num_samples)
@@ -194,57 +190,34 @@ def _chisq_pvalue(stat, dof):
 
 
 def sampler_gof(draws_per_round=4096, rounds=32, seed=7):
-    """On-hardware goodness-of-fit for the Pallas samplers: empirical
+    """Goodness-of-fit of the samplers as they run on the device: empirical
     frequencies of ALL 2^N configurations against the ansatz's exact
-    autoregressive probabilities (chi-square).  Converts the hardware-gated
-    sampler-statistics tests' coverage hole (``pltpu.prng_random_bits``
-    returns zeros in interpret mode) into a measured on-chip guarantee.
-    Reference sampling semantics: ``tf.multinomial`` draws,
-    ``/root/reference/1DTFIM/RNNwavefunction.py:68``.
+    autoregressive probabilities (chi-square).  On a GPU the GRU and LSTM
+    draws come from the rollout kernel (``ops/rollout.py``).
+    Reference sampling semantics: ``tf.multinomial`` draws
+    (``1DTFIM/RNNwavefunction.py:68`` of the reference).
 
     Covers the GRU sampler (N=8), the LSTM sampler (N=8), the U(1)-masked
-    cRNN (N=8 — includes the zero-magnetization sector check), the 3x3
-    MDRNN, and the flip-pair-packed fused 2D sample+estimate path (S=64:
-    2B <= tile mirrors the lower-half draws into the upper lanes —
-    a distinct draw path from the plain sampler)."""
-    import jax.numpy as jnp
-
-    from rnnwavefunctions_tpu import CRNNU1, MDRNN2D, PRNN1D
-    from rnnwavefunctions_tpu.ops import mdrnn_flip_kernel as mk
-
-    mdrnn = MDRNN2D(nx=3, ny=3, units=12)
-    tile_p, _, _ = mk._pick(3, 3, 12, 64)
-    assert mk._pack_for(64, tile_p), "S=64 must engage the packed sampler"
-
-    def packed_sample(params, key, num):
-        s32 = jnp.int32(jax.random.randint(key, (), 0, 2**31 - 1))
-        draws, _, _ = mk.mdrnn_sample_and_flip_sum(params, s32, num, 3, 3)
-        return draws
+    cRNN (N=8 — includes the zero-magnetization sector check) and the 3x3
+    MDRNN."""
+    from rnnwavefunctions import CRNNU1, MDRNN2D, PRNN1D
 
     results = []
     cases = [
-        ("gru_n8", PRNN1D(num_sites=8, units=(16,)), 8, None, None, 1),
-        ("lstm_n8", PRNN1D(num_sites=8, units=(16,), cell="lstm"), 8, None,
-         None, 1),
-        ("crnn_u1_n8", CRNNU1(num_sites=8, units=(16,)), 8, "u1", None, 1),
-        ("mdrnn_3x3", MDRNN2D(nx=3, ny=3, units=12), 9, "grid", None, 1),
-        # small rounds at S=64: 512 dispatches = 32,768 packed draws
-        ("mdrnn_3x3_packed_s64", mdrnn, 9, "grid", packed_sample, 16),
+        ("gru_n8", PRNN1D(num_sites=8, units=(16,)), 8, None),
+        ("lstm_n8", PRNN1D(num_sites=8, units=(16,), cell="lstm"), 8, None),
+        ("crnn_u1_n8", CRNNU1(num_sites=8, units=(16,)), 8, "u1"),
+        ("mdrnn_3x3", MDRNN2D(nx=3, ny=3, units=12), 9, "grid"),
     ]
-    for name, ansatz, n, kind, sample_fn, rscale in cases:
-        dpr = draws_per_round if sample_fn is None else 64
-        nrounds = rounds * rscale
-        total = dpr * nrounds
+    for name, ansatz, n, kind in cases:
+        total = draws_per_round * rounds
         params = ansatz.init(jax.random.PRNGKey(seed))
         counts = np.zeros(2**n, dtype=np.int64)
         key = jax.random.PRNGKey(seed + 1)
-        for r in range(nrounds):
+        for r in range(rounds):
             key, sub = jax.random.split(key)
-            if sample_fn is None:
-                draws = np.asarray(ansatz.sample(params, sub, dpr))
-            else:
-                draws = np.asarray(sample_fn(params, sub, dpr))
-            flat = draws.reshape(dpr, n)
+            draws = np.asarray(ansatz.sample(params, sub, draws_per_round))
+            flat = draws.reshape(draws_per_round, n)
             code = (flat.astype(np.int64) << np.arange(n)[None, :]).sum(1)
             counts += np.bincount(code, minlength=2**n)
 
@@ -257,7 +230,7 @@ def sampler_gof(draws_per_round=4096, rounds=32, seed=7):
         probs = np.exp(np.float64(logp))
         if kind == "u1":
             sector = configs.sum(1) == n // 2
-            # sector check: every on-chip draw obeys the U(1) constraint
+            # sector check: every device draw obeys the U(1) constraint
             assert counts[~sector].sum() == 0, "off-sector draws!"
             probs = np.where(sector, probs, 0.0)
         # normalization sanity: exact autoregressive probs sum to 1
@@ -290,7 +263,7 @@ def _race_problem(family, n):
     """(ansatz, hamiltonian, anchor, adam_lr) for a race family.  Anchors:
     TFIM from the reference DMRG table; J1-J2 N=100/J2=0.2 DMRG
     (BASELINE.md); MDRNN 4x4/Bx=3 from the native Lanczos oracle
-    (BENCHMARKS.md)."""
+    (``ed/native.py``)."""
     if family == "tfim":
         return (PRNN1D(num_sites=n, units=(50,)),
                 TFIM1D(num_sites=n, bx=1.0), TFIM_DMRG[n], 5e-3, 500)
@@ -300,7 +273,7 @@ def _race_problem(family, n):
                 J1J2(num_sites=n, j1=1.0, j2=0.2, marshall_sign=True),
                 J1J2_DMRG_N100[0.2], 2e-3, 512)
     if family == "mdrnn":
-        from rnnwavefunctions_tpu import MDRNN2D, TFIM2D
+        from rnnwavefunctions import MDRNN2D, TFIM2D
 
         assert n == 16, "2D race runs the reference-default 4x4 lattice"
         return (MDRNN2D(nx=4, ny=4, units=50),
@@ -312,18 +285,17 @@ def _race_problem(family, n):
 def minsr_race(n=100, threshold=1e-4, num_samples=None, seeds=(0,),
                block=250, family="tfim"):
     """Wall-clock-to-threshold head-to-head: Adam (reference optimizer/lr)
-    vs minSR (round-4 solver stack: tree rows + HIGH gram + fused-CG
-    solve), on any of the three ansatz families.  Trains each in
+    vs minSR (stash-and-contract rows, sample-space Gram, CG solve), on
+    any of the three ansatz families.  Trains each in
     ``block``-step device-side blocks until the trailing-block mean energy
     is within ``threshold`` relative of the anchor, and reports steps +
-    wall seconds.  The claims under test (5-seed medians, BENCHMARKS.md
-    round 5): minSR needs 2-3.5x fewer steps and wins wall-clock on every
-    family despite its per-step premium.
+    wall seconds.  The claim under test: minSR needs fewer steps than Adam
+    and wins wall-clock despite its per-step premium.
 
     ``seeds`` varies BOTH the parameter init and the Monte-Carlo stream;
     steps-to-threshold is a noisy race statistic, so the honest headline is
-    the median +- spread over >= 5 seeds (round-5 VERDICT item 4), not a
-    single run at the default seed."""
+    the median +- spread over >= 5 seeds, not a single run at the default
+    seed."""
     ansatz, ham, ref, adam_lr, family_samples = _race_problem(family, n)
     if num_samples is None:
         num_samples = family_samples  # the published tables' batch sizes
@@ -409,7 +381,7 @@ def main(argv=None):
                         "spread over seeds 0..K-1)")
     p.add_argument("--gof", action="store_true",
                    help="sampler goodness-of-fit only (chi-square of the "
-                        "on-chip Pallas samplers vs exact probabilities)")
+                        "device samplers vs exact probabilities)")
     p.add_argument("--fidelity", type=int, metavar="N", default=None,
                    help="train the N-site TFIM and report the exact-ground-"
                         "state fidelity (dense to N=16, Lanczos to N=24)")

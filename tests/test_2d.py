@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.hamiltonians.tfim2d import TFIM2D
-from rnnwavefunctions_tpu.models.mdrnn2d import MDRNN2D
-from rnnwavefunctions_tpu.models.prnn_snake2d import PRNNSnake2D
-from rnnwavefunctions_tpu.vmc.local_energy import make_local_energy_fn
-from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.hamiltonians.tfim2d import TFIM2D
+from rnnwavefunctions.models.mdrnn2d import MDRNN2D
+from rnnwavefunctions.models.prnn_snake2d import PRNNSnake2D
+from rnnwavefunctions.vmc.local_energy import make_local_energy_fn
+from rnnwavefunctions import TrainConfig, VMCTrainer
 
 
 def all_flat_configs(n):

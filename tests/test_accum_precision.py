@@ -1,22 +1,20 @@
 """Compensated (Kahan) log-prob accumulation vs a float64 oracle.
 
 The reference promotes the per-site log-prob sum to float64
-(``/root/reference/1DTFIM/RNNwavefunction.py:113-116``); the TPU rebuild
+(``1DTFIM/RNNwavefunction.py:113-116``); the rebuild
 reproduces that error class with a Kahan pair carried in f32
-(``ops/compsum.py``, used by every fused kernel accumulator and the models'
-f32 jnp paths).  These tests pin the guarantee against float64 oracles —
-and would fail with a plain f32 running sum (measured drift ~8.6e-4 at
-N=1000 vs the ~3e-5 Kahan bound, scripts/exp_f32_accum_error.py).
+(``ops/compsum.py``, used by the rollout kernel's accumulator and the
+models' f32 jnp paths).  These tests pin the guarantee against float64
+oracles — and would fail with a plain f32 running sum.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from rnnwavefunctions_tpu.models.prnn1d import PRNN1D
-from rnnwavefunctions_tpu.ops.compsum import compensated_sum
+from rnnwavefunctions.models.prnn1d import PRNN1D
+from rnnwavefunctions.ops.compsum import compensated_sum
 
 
 def test_compensated_sum_matches_f64():
@@ -50,11 +48,11 @@ def test_compensated_sum_inf_safe():
 def _f32_and_f64_models(n, units, seed=0):
     wf64 = PRNN1D(
         num_sites=n, units=units, dtype=jnp.float64,
-        accum_dtype=jnp.float64, impl="jnp",
+        accum_dtype=jnp.float64,
     )
     params64 = wf64.init(jax.random.PRNGKey(seed))
     params32 = jax.tree.map(lambda x: x.astype(jnp.float32), params64)
-    wf32 = PRNN1D(num_sites=n, units=units, impl="jnp")
+    wf32 = PRNN1D(num_sites=n, units=units)
     return wf64, params64, wf32, params32
 
 
@@ -75,10 +73,10 @@ def test_prnn1d_logp_matches_f64_oracle():
 
 
 def test_fused_logp_kernel_matches_f64_oracle():
-    """The fused GRU log-prob kernel's in-kernel Kahan accumulator
-    (interpret mode) lands in the same f64-oracle error class as the
-    compensated jnp path."""
-    from rnnwavefunctions_tpu.ops import fused_gru
+    """The GPU rollout kernel's in-kernel Kahan accumulator (interpret
+    mode) lands in the same f64-oracle error class as the compensated jnp
+    path."""
+    from rnnwavefunctions.ops import rollout
 
     n, s = 1024, 4
     with jax.enable_x64(True):
@@ -87,6 +85,6 @@ def test_fused_logp_kernel_matches_f64_oracle():
             jax.random.PRNGKey(3), 0.5, (s, n)
         ).astype(jnp.int32)
         lp64 = np.asarray(wf64.log_prob(params64, samples))
-    with pltpu.force_tpu_interpret_mode():
-        lp_k = np.asarray(fused_gru._log_prob_pallas(params32, samples))
+    lp_k = np.asarray(rollout.log_prob(
+        params32, samples, wf32._log_prob_plain_jnp, interpret=True))
     assert np.max(np.abs(lp_k.astype(np.float64) - lp64)) < 1.2e-4

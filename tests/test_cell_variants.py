@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer, make_mesh
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.models.mdrnn2d import MDRNN2D
-from rnnwavefunctions_tpu.models.prnn_snake2d import PRNNSnake2D
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer, make_mesh
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.models.mdrnn2d import MDRNN2D
+from rnnwavefunctions.models.prnn_snake2d import PRNNSnake2D
 
 
 def all_configs(n):
@@ -33,7 +33,7 @@ def all_configs(n):
 def test_lstm_autoregressive_normalization():
     n = 6
     ansatz = PRNN1D(num_sites=n, units=(10, 8), cell="lstm")
-    assert not ansatz._kernelizable()  # jnp scan path
+    assert not ansatz._use_kernel()  # jnp scan path on the CPU
     params = ansatz.init(jax.random.PRNGKey(0))
     lp = ansatz.log_prob(params, all_configs(n))
     np.testing.assert_allclose(float(jnp.sum(jnp.exp(lp))), 1.0, rtol=1e-4)
@@ -85,7 +85,7 @@ def test_prnn1d_float64_normalization_and_step():
     with jax.enable_x64(True):
         ansatz = PRNN1D(
             num_sites=n, units=(8,), dtype=jnp.float64,
-            accum_dtype=jnp.float64, impl="jnp",
+            accum_dtype=jnp.float64,
         )
         params = ansatz.init(jax.random.PRNGKey(0))
         lp = ansatz.log_prob(params, all_configs(n))
@@ -106,7 +106,7 @@ def test_mdrnn2d_float64_normalization():
     with jax.enable_x64(True):
         ansatz = MDRNN2D(
             nx=2, ny=3, units=6, dtype=jnp.float64,
-            accum_dtype=jnp.float64, impl="jnp",
+            accum_dtype=jnp.float64,
         )
         params = ansatz.init(jax.random.PRNGKey(2))
         configs = all_configs(6).reshape(-1, 2, 3)
@@ -114,27 +114,3 @@ def test_mdrnn2d_float64_normalization():
         assert lp.dtype == jnp.float64
         np.testing.assert_allclose(float(jnp.sum(jnp.exp(lp))), 1.0,
                                    rtol=1e-10)
-
-
-def test_fused_forfeit_warning_once(monkeypatch):
-    """A config outside kernel coverage warns exactly once per ansatz repr
-    on accelerator backends under impl="auto", and an explicit impl="jnp"
-    acknowledges and silences it (VERDICT r2 ergonomics item)."""
-    import warnings
-
-    from rnnwavefunctions_tpu.models import base as model_base
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(model_base, "_FORFEIT_WARNED", set())
-
-    slow = PRNN1D(num_sites=4, units=(6, 8))  # non-uniform stack: no kernels
-    with pytest.warns(UserWarning, match="outside fused-kernel coverage"):
-        assert slow._use_pallas() is False
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # second call must stay silent
-        assert slow._use_pallas() is False
-
-    acknowledged = PRNN1D(num_sites=4, units=(6, 8), impl="jnp")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert acknowledged._use_pallas() is False

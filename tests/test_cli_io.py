@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.cli import run_1dtfim, run_j1j2
-from rnnwavefunctions_tpu.utils.checkpoints import Checkpointer
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions.cli import run_1dtfim, run_j1j2
+from rnnwavefunctions.utils.checkpoints import Checkpointer
 
 
 def test_cli_1dtfim_writes_reference_artifacts(tmp_path):
@@ -57,7 +57,7 @@ def test_cli_j1j2_runs_complex(tmp_path):
 def test_cli_2d_float64_end_to_end(tmp_path):
     """--dtype float64 on the 2D runners trains in f64 end-to-end (the
     reference's 2D graph dtype, ``2DTFIM_2DRNN/RNNwavefunction.py:32``)."""
-    from rnnwavefunctions_tpu.cli import run_2dtfim_1drnn, run_2dtfim_2drnn
+    from rnnwavefunctions.cli import run_2dtfim_1drnn, run_2dtfim_2drnn
 
     base = [
         "--numsteps", "4", "--systemsize-x", "2", "--systemsize-y", "2",
@@ -106,7 +106,7 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_cli_evaluate_restores_and_measures(tmp_path):
     """Train briefly via the CLI, then measure the checkpoint with the
     evaluate entry point (restore plumbing + JSON output)."""
-    from rnnwavefunctions_tpu.cli import evaluate
+    from rnnwavefunctions.cli import evaluate
 
     run_1dtfim.main([
         "--numsteps", "10", "--systemsize", "6", "--num-units", "8",
@@ -139,7 +139,7 @@ def test_cli_evaluate_restores_lstm_checkpoint(tmp_path):
     """evaluate --cell lstm rebuilds the LSTM-shaped pytree so checkpoints
     from ``run_1dtfim --cell lstm`` restore (review finding: the evaluate
     CLI used to hardwire the GRU/f32 ansatz and mismatch on restore)."""
-    from rnnwavefunctions_tpu.cli import evaluate
+    from rnnwavefunctions.cli import evaluate
 
     run_1dtfim.main([
         "--numsteps", "6", "--systemsize", "6", "--num-units", "8",
@@ -160,7 +160,7 @@ def test_cli_evaluate_restores_lstm_checkpoint(tmp_path):
 def test_profile_trace_capture(tmp_path):
     """--profile-dir captures exactly one traced block and always closes the
     trace (ADVICE r1: a short run used to leak an open profiler session)."""
-    from rnnwavefunctions_tpu.cli.run_loop import run_training
+    from rnnwavefunctions.cli.run_loop import run_training
 
     trainer = VMCTrainer(
         PRNN1D(num_sites=6, units=(8,)), TFIM1D(num_sites=6),
@@ -190,7 +190,7 @@ def test_ckpt_cadence_saves_exact_step(tmp_path):
     """With ckpt_every not a multiple of log_every, the saved checkpoint
     must carry exactly the ckpt_every-step state (blocks stop at checkpoint
     steps rather than saving the block-end state)."""
-    from rnnwavefunctions_tpu.cli.run_loop import run_training
+    from rnnwavefunctions.cli.run_loop import run_training
 
     trainer = VMCTrainer(
         PRNN1D(num_sites=6, units=(8,)),
@@ -202,7 +202,7 @@ def test_ckpt_cadence_saves_exact_step(tmp_path):
         log_every=10, save_every=10, ckpt_every=25,
     )
     ckpt = Checkpointer(os.path.join(str(tmp_path), "ckpt_cadence"))
-    steps = sorted(ckpt._mgr.all_steps())
+    steps = ckpt._steps()
     # loop indices are reference-style 0..num_steps inclusive and the state
     # counter counts updates, so cadence index 25 saves as update-count 26
     # (pre-fix the block ran through index 30's boundary and saved 28+ only)
@@ -240,7 +240,7 @@ def test_cli_evaluate_restores_minsr_checkpoint(tmp_path):
     """evaluate on a checkpoint trained with --optimizer minsr: the trainer
     template's opt_state is Adam-shaped, so restore must fall back to the
     params+step path (review finding: evaluate crashed on minSR runs)."""
-    from rnnwavefunctions_tpu.cli import evaluate
+    from rnnwavefunctions.cli import evaluate
 
     run_1dtfim.main([
         "--numsteps", "6", "--systemsize", "6", "--num-units", "8",
@@ -279,7 +279,7 @@ def test_cli_evaluate_fidelity_rejects_large_n_fast():
     """--fidelity with N>24 must exit BEFORE any 2^N allocation or
     measurement work (review finding: the guard used to sit after both);
     16 < N <= 24 is served by the native Lanczos vector instead."""
-    from rnnwavefunctions_tpu.cli import evaluate
+    from rnnwavefunctions.cli import evaluate
 
     with pytest.raises(SystemExit, match="N=26 > 24"):
         evaluate.main([
@@ -288,35 +288,11 @@ def test_cli_evaluate_fidelity_rejects_large_n_fast():
         ])
 
 
-def test_persistent_cache_flag(tmp_path):
-    """--jax-cache-dir semantics: explicit dir applies, the DEFAULT defers
-    to an already-configured cache (the suite's shared tests/.jax_cache
-    when CLI mains run in-process), 'none' disables."""
-    import jax
-
-    from rnnwavefunctions_tpu.cli import run_loop
-
-    orig = jax.config.jax_compilation_cache_dir
-    try:
-        explicit = str(tmp_path / "c")
-        run_loop.enable_persistent_cache(explicit)
-        assert jax.config.jax_compilation_cache_dir == explicit
-        # the default never clobbers an existing configuration
-        run_loop.enable_persistent_cache(run_loop.DEFAULT_JAX_CACHE)
-        assert jax.config.jax_compilation_cache_dir == explicit
-        # 'none' / empty are no-ops
-        run_loop.enable_persistent_cache("none")
-        run_loop.enable_persistent_cache(None)
-        assert jax.config.jax_compilation_cache_dir == explicit
-    finally:
-        jax.config.update("jax_compilation_cache_dir", orig)
-
-
 def test_module_dispatcher(capsys):
-    """``python -m rnnwavefunctions_tpu`` subcommand dispatch: usage on no
+    """``python -m rnnwavefunctions`` subcommand dispatch: usage on no
     args, exit code 2 + usage on an unknown command, and real wiring into
     each runner's argparse (--help must reach the command's own parser)."""
-    from rnnwavefunctions_tpu import __main__ as dispatcher
+    from rnnwavefunctions import __main__ as dispatcher
 
     assert dispatcher.main([]) == 0
     assert "commands:" in capsys.readouterr().out
@@ -336,7 +312,7 @@ def test_module_dispatcher_exit_status_on_success(tmp_path, capsys):
     STATUS 0 — the runner mains return a (mean, var) tuple for in-process
     callers, which must NOT leak into sys.exit (a truthy tuple would exit
     1 and print the series to stderr, breaking `... && next` pipelines)."""
-    from rnnwavefunctions_tpu import __main__ as dispatcher
+    from rnnwavefunctions import __main__ as dispatcher
 
     rc = dispatcher.main([
         "1dtfim", "--numsteps", "2", "--systemsize", "4",
@@ -374,7 +350,7 @@ def test_cli_evaluate_tp_checkpoint_with_observables(tmp_path):
     replicated full trees, so the evaluate CLI's dp-only trainer restores
     them unchanged; the trainer-level tp evaluate path is covered by
     tests/test_tensor_parallel.py."""
-    from rnnwavefunctions_tpu.cli import evaluate
+    from rnnwavefunctions.cli import evaluate
 
     run_1dtfim.main([
         "--numsteps", "6", "--systemsize", "6", "--num-units", "8",

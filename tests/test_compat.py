@@ -3,7 +3,7 @@
 The reference's public Python API is the four ``run_*`` training functions
 (``1DTFIM/TrainingRNN_1DTFIM.py:79``, ``J1J2/TrainingRNN_J1J2.py:131``,
 ``2DTFIM_1DRNN/Training1DRNN_2DTFIM.py:85``,
-``2DTFIM_2DRNN/Training2DRNN_2DTFIM.py:88``); ``rnnwavefunctions_tpu.compat``
+``2DTFIM_2DRNN/Training2DRNN_2DTFIM.py:88``); ``rnnwavefunctions.compat``
 re-exposes them name-for-name and default-for-default.
 """
 
@@ -13,7 +13,7 @@ import os
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import compat
+from rnnwavefunctions import compat
 
 
 def _params(fn):

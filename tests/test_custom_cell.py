@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import CRNNU1, PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.models.cells import ElmanCell
+from rnnwavefunctions import CRNNU1, PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions.models.cells import ElmanCell
 
 
 def _all_configs(n):

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer, make_mesh
-from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
-from rnnwavefunctions_tpu.vmc.local_energy import make_local_energy_fn
-from rnnwavefunctions_tpu.vmc.loss import surrogate_loss
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer, make_mesh
+from rnnwavefunctions.parallel import mesh as mesh_lib
+from rnnwavefunctions.vmc.local_energy import make_local_energy_fn
+from rnnwavefunctions.vmc.loss import surrogate_loss
 
 
 def test_simulated_mesh_has_8_devices():

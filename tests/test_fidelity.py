@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.ed.fidelity import basis_configs, fidelities, fidelity
-from rnnwavefunctions_tpu.models.mdrnn2d import MDRNN2D
-from rnnwavefunctions_tpu.vmc.local_energy import make_local_energy_fn
+from rnnwavefunctions import PRNN1D, TFIM1D, TFIM2D, TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.ed.fidelity import basis_configs, fidelities, fidelity
+from rnnwavefunctions.models.mdrnn2d import MDRNN2D
+from rnnwavefunctions.vmc.local_energy import make_local_energy_fn
 
 
 class _TableAnsatz:
@@ -68,7 +68,7 @@ def test_fidelity_grid_mapping_energy_projection():
     ordering (tests/test_2d.py)."""
     nx, ny, bx = 2, 3, 0.9
     n = nx * ny
-    ansatz = MDRNN2D(nx=nx, ny=ny, units=6, impl="jnp")
+    ansatz = MDRNN2D(nx=nx, ny=ny, units=6)
     params = ansatz.init(jax.random.PRNGKey(3))
     h = exact.tfim2d_dense(nx, ny, bx)
     w, v = np.linalg.eigh(h)
@@ -112,7 +112,7 @@ def test_fidelity_complex_u1_energy_projection():
     J1-J2 conserves magnetization, so (a) fidelity against any eigenvector
     outside the Sz=0 sector is exactly 0, (b) completeness sums to 1, and
     (c) sum_k E_k F_k equals the exhaustive in-sector estimator expectation."""
-    from rnnwavefunctions_tpu import CRNNU1, J1J2
+    from rnnwavefunctions import CRNNU1, J1J2
 
     n = 6
     ansatz = CRNNU1(num_sites=n, units=(8,))
@@ -147,11 +147,11 @@ def test_fidelity_snake2d_flat_mapping():
     """PRNNSnake2D samples are y-major flat vectors — the exact row order
     of tfim2d_dense (idx = y*nx + x) — so the 1D flat mapping applies;
     pinned by the same energy-projection identity as the grid case."""
-    from rnnwavefunctions_tpu.models.prnn_snake2d import PRNNSnake2D
+    from rnnwavefunctions.models.prnn_snake2d import PRNNSnake2D
 
     nx, ny, bx = 3, 2, 1.1
     n = nx * ny
-    ansatz = PRNNSnake2D(nx=nx, ny=ny, units=(6,), impl="jnp")
+    ansatz = PRNNSnake2D(nx=nx, ny=ny, units=(6,))
     params = ansatz.init(jax.random.PRNGKey(5))
     h = exact.tfim2d_dense(nx, ny, bx)
     w, v = np.linalg.eigh(h)

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.hamiltonians.j1j2 import J1J2
-from rnnwavefunctions_tpu.models.crnn_u1 import CRNNU1
-from rnnwavefunctions_tpu.vmc.local_energy import make_local_energy_fn
-from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.hamiltonians.j1j2 import J1J2
+from rnnwavefunctions.models.crnn_u1 import CRNNU1
+from rnnwavefunctions.vmc.local_energy import make_local_energy_fn
+from rnnwavefunctions import TrainConfig, VMCTrainer
 
 
 def all_configs(n):

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.hamiltonians.tfim1d import TFIM1D
-from rnnwavefunctions_tpu.models.prnn1d import PRNN1D
-from rnnwavefunctions_tpu.vmc.local_energy import make_local_energy_fn
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.hamiltonians.tfim1d import TFIM1D
+from rnnwavefunctions.models.prnn1d import PRNN1D
+from rnnwavefunctions.vmc.local_energy import make_local_energy_fn
 
 
 def brute_force_local_energy(h_dense, log_amp_fn, samples, n):

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 from jax.flatten_util import ravel_pytree
 
-from rnnwavefunctions_tpu import (
+from rnnwavefunctions import (
     CRNNU1,
     J1J2,
     PRNN1D,
@@ -30,9 +30,9 @@ from rnnwavefunctions_tpu import (
     VMCTrainer,
     make_mesh,
 )
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.vmc import minsr
-from rnnwavefunctions_tpu.vmc.loss import surrogate_loss
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.vmc import minsr
+from rnnwavefunctions.vmc.loss import surrogate_loss
 
 LAM = 0.05
 
@@ -155,7 +155,7 @@ def test_minsr_large_damping_limit_is_surrogate_gradient():
     lam = 1e6
     d = lam * minsr.minsr_direction(o_re, None, e, None, e.mean(), None, lam)
 
-    jnp_ansatz = dataclasses.replace(ansatz, impl="jnp")
+    jnp_ansatz = dataclasses.replace(ansatz)
     grad = jax.grad(
         lambda p: surrogate_loss(
             jnp_ansatz.log_amp(p, samples), None, e, None, e.mean(), None
@@ -170,7 +170,7 @@ def test_minsr_large_damping_limit_is_surrogate_gradient():
 def _vmap_grad_rows(ansatz, params, samples):
     """The definitional per-sample jacobian (what vmc/jacobian.py must
     reproduce): vmap of grad over the jnp scan path."""
-    a = dataclasses.replace(ansatz, impl="jnp")
+    a = dataclasses.replace(ansatz)
 
     def f(p, s):
         return a.log_amp(p, s[None])[0]
@@ -196,7 +196,7 @@ def _vmap_grad_rows(ansatz, params, samples):
 def test_fast_jacobian_rows_match_vmap_grad(kwargs):
     """The stash-and-contract BPTT jacobian (vmc/jacobian.py) is row-for-row
     the vmap-of-grad jacobian on every PRNN1D variant it claims."""
-    from rnnwavefunctions_tpu.vmc import jacobian
+    from rnnwavefunctions.vmc import jacobian
 
     ansatz = PRNN1D(num_sites=7, **kwargs)
     assert jacobian.supports(ansatz)
@@ -216,7 +216,7 @@ def test_fast_jacobian_rows_match_vmap_grad(kwargs):
 def _vmap_jacrev_rows_complex(ansatz, params, samples):
     """Definitional complex jacobian: vmap of jacrev over (Re, Im) log psi
     on the jnp scan path (the generic path in vmc/minsr.py)."""
-    a = dataclasses.replace(ansatz, impl="jnp")
+    a = dataclasses.replace(ansatz)
 
     def f2(p, s):
         re, im = a.log_amp_parts(p, s[None])
@@ -242,7 +242,7 @@ def test_fast_jacobian_crnn_rows_match_vmap_jacrev(kwargs):
     """The cRNN fast jacobian (two-head seeding through the shared trunk)
     is row-for-row the vmap-of-jacrev jacobian, Re and Im parts, on
     in-sector samples."""
-    from rnnwavefunctions_tpu.vmc import jacobian
+    from rnnwavefunctions.vmc import jacobian
 
     ansatz = CRNNU1(num_sites=6, **kwargs)
     assert jacobian.supports(ansatz)
@@ -268,8 +268,8 @@ def test_fast_jacobian_mdrnn2d_rows_match_vmap_grad(nx, ny):
     """The 2D fast jacobian (reverse boustrophedon sweep) is row-for-row
     the vmap-of-grad jacobian on square and non-square lattices, even and
     odd row counts (exercising the visit-order flips)."""
-    from rnnwavefunctions_tpu import MDRNN2D
-    from rnnwavefunctions_tpu.vmc import jacobian
+    from rnnwavefunctions import MDRNN2D
+    from rnnwavefunctions.vmc import jacobian
 
     ansatz = MDRNN2D(nx=nx, ny=ny, units=7)
     assert jacobian.supports(ansatz)
@@ -287,8 +287,8 @@ def test_fast_jacobian_mdrnn2d_rows_match_vmap_grad(nx, ny):
 
 
 def test_fast_jacobian_declines_custom_cells():
-    from rnnwavefunctions_tpu.models.cells import ElmanCell
-    from rnnwavefunctions_tpu.vmc import jacobian
+    from rnnwavefunctions.models.cells import ElmanCell
+    from rnnwavefunctions.vmc import jacobian
 
     assert not jacobian.supports(PRNN1D(num_sites=4, cell=ElmanCell()))
     assert not jacobian.supports(CRNNU1(num_sites=4, cell=ElmanCell()))
@@ -319,7 +319,7 @@ def test_minsr_trainer_converges_mdrnn2d():
     """The 2D family: per-sample jacobians vmap over grid-shaped samples
     (S, nx, ny) and the boustrophedon scan-of-scans; 2x3 TFIM reaches
     ~1e-4 in 40 steps."""
-    from rnnwavefunctions_tpu import MDRNN2D, TFIM2D
+    from rnnwavefunctions import MDRNN2D, TFIM2D
 
     e_exact = exact.ground_state_energy(exact.tfim2d_dense(2, 3, 3.0))
     cfg = TrainConfig(

@@ -1,11 +1,11 @@
 """Multi-host (multi-process) initialization and training-path tests.
 
 Two local processes coordinate through ``jax.distributed.initialize`` (the
-DCN role), build the global 1D dp mesh over all processes' CPU devices, run
+cross-host role), build the global 1D dp mesh over all processes' CPU devices, run
 a psum collective across the process boundary, and execute the full sharded
 VMC multi-step program (sample -> E_loc -> grad -> psum -> Adam) with the
-per-step metrics fetched on every host.  Orbax checkpoint saves are
-collective and need a single shared directory — they are exercised
+per-step metrics fetched on every host.  Checkpoint saves are written by
+process 0 into a directory every process reads — they are exercised
 single-process in test_cli_io; here the primary-only gating of the CLI
 metrics writers is verified directly by faking a non-primary host.
 """
@@ -30,7 +30,7 @@ jax.config.update("jax_num_cpu_devices", 2)
 pid = int(sys.argv[1])
 port = sys.argv[2]
 
-from rnnwavefunctions_tpu.parallel import multihost
+from rnnwavefunctions.parallel import multihost
 
 multihost.initialize(coordinator_address=f"localhost:{port}",
                      num_processes=2, process_id=pid)
@@ -53,8 +53,8 @@ local = [int(s.data[0]) for s in out.addressable_shards]
 assert local == [10, 10], local  # 1 + 2 + 3 + 4 on every device
 
 # full sharded VMC training over the global mesh: chains split across both
-# processes, psum'd statistics and gradients over the (simulated) DCN
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+# processes, psum'd statistics and gradients over the (simulated) cross-host link
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
 
 trainer = VMCTrainer(
     PRNN1D(num_sites=6, units=(8,)), TFIM1D(num_sites=6, bx=1.0),
@@ -122,9 +122,9 @@ def test_two_process_distributed_init_and_sharded_step(tmp_path):
 def test_non_primary_host_writes_no_metrics(tmp_path, monkeypatch):
     """is_primary() gating of the CLI writer path: a non-primary host trains
     but must not emit metrics artifacts or prints."""
-    from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.cli import run_loop
-    from rnnwavefunctions_tpu.parallel import multihost
+    from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+    from rnnwavefunctions.cli import run_loop
+    from rnnwavefunctions.parallel import multihost
 
     monkeypatch.setattr(multihost, "is_primary", lambda: False)
     trainer = VMCTrainer(

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu.ed import exact
+from rnnwavefunctions.ed import exact
 
-native = pytest.importorskip("rnnwavefunctions_tpu.ed.native")
+native = pytest.importorskip("rnnwavefunctions.ed.native")
 
 
 def test_tfim_lanczos_matches_dense():
@@ -84,7 +84,7 @@ def test_j1j2_lanczos_ground_vector_matches_dense():
 def test_fidelity_against_lanczos_vector_beyond_dense():
     """The Lanczos vector plugs straight into ed.fidelity: a table ansatz
     holding |gs| reaches F ~= 1 at N=18 — past any dense eigh."""
-    from rnnwavefunctions_tpu.ed.fidelity import fidelity
+    from rnnwavefunctions.ed.fidelity import fidelity
 
     n = 18
     e, vec, resid = native.tfim1d_ground_state(n, 1.0)

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import (
+from rnnwavefunctions import (
     CRNNU1, J1J2, PRNN1D, TFIM1D, TrainConfig, VMCTrainer,
 )
-from rnnwavefunctions_tpu.ed import exact
-from rnnwavefunctions_tpu.vmc import observables
+from rnnwavefunctions.ed import exact
+from rnnwavefunctions.vmc import observables
 
 
 def test_magnetization_and_correlations():
@@ -58,7 +58,7 @@ def test_trainer_evaluate_complex_zero_mag():
 
 
 def test_schedules():
-    from rnnwavefunctions_tpu.vmc.trainer import TrainConfig, make_schedule
+    from rnnwavefunctions.vmc.trainer import TrainConfig, make_schedule
     import jax.numpy as jnp
 
     s = make_schedule(TrainConfig(learning_rate=1e-2, schedule="constant"))
@@ -273,7 +273,7 @@ def test_renyi2_swap_enumeration_matches_exact_real():
     """Exhaustive-pair expectation of the swap terms == the dense oracle
     on the ansatz's own amplitude table (no MC noise: every (sigma, tau)
     pair weighted by p(sigma) p(tau))."""
-    from rnnwavefunctions_tpu.ed.fidelity import amplitude_table, basis_configs
+    from rnnwavefunctions.ed.fidelity import amplitude_table, basis_configs
 
     n = 6
     ansatz = PRNN1D(num_sites=n, units=(8,))
@@ -298,7 +298,7 @@ def test_renyi2_u1_complex_enumeration():
     """Complex U(1) head: enumeration over the zero-magnetization sector
     matches the dense oracle, and swaps that leave the sector contribute
     exactly ~0 (psi = 0 on the swapped configuration)."""
-    from rnnwavefunctions_tpu.ed.fidelity import amplitude_table, basis_configs
+    from rnnwavefunctions.ed.fidelity import amplitude_table, basis_configs
 
     n = 6
     ansatz = CRNNU1(num_sites=n, units=(8,))
@@ -413,7 +413,7 @@ def test_trainer_evaluate_structure_factor_2d():
     """2D workloads report the S(kx, ky) momentum grid from evaluate()
     (the round-3 CLI fail-fast is gone) — both the MDRNN grid family and
     the snake flat family."""
-    from rnnwavefunctions_tpu import MDRNN2D, PRNNSnake2D, TFIM2D
+    from rnnwavefunctions import MDRNN2D, PRNNSnake2D, TFIM2D
 
     tr = VMCTrainer(
         MDRNN2D(nx=3, ny=4, units=8),

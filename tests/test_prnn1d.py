@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu.models.prnn1d import PRNN1D
+from rnnwavefunctions.models.prnn1d import PRNN1D
 
 
 def all_configs(n):

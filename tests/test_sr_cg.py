@@ -1,9 +1,8 @@
-"""Fused-CG SR solver tests (ops/sr_cg.py).
+"""Conjugate-gradient SR solver tests (``vmc/minsr.cg_solve``).
 
-Oracle chain, matching the repo's fused-kernel convention (CLAUDE.md):
-the jnp twin ``cg_solve_jnp`` is the reference implementation; the Pallas
-kernel must match it exactly in interpret mode; the twin itself must reach
-the exact (Cholesky) solution on SPD systems of realistic SR conditioning.
+The solver must reach the exact (Cholesky) solution on SPD systems of
+realistic SR conditioning, freeze at exact convergence instead of NaNing,
+and keep float64 systems in float64.
 """
 
 import jax
@@ -11,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu.ops import sr_cg
+from rnnwavefunctions.vmc.minsr import cg_solve
 
 
 def _spd(s, seed, cond_boost=0.0):
@@ -32,22 +31,9 @@ def test_jnp_cg_reaches_exact_solution(s):
     want = jax.scipy.linalg.cho_solve(
         jax.scipy.linalg.cho_factor(t, lower=True), c
     )
-    got = sr_cg.cg_solve_jnp(t, c, iters=2 * s)
+    got = cg_solve(t, c, iters=2 * s)
     err = float(jnp.linalg.norm(got - want) / jnp.linalg.norm(want))
     assert err < 1e-3, err
-
-
-@pytest.mark.parametrize("s", [24, 128, 200])
-def test_kernel_matches_jnp_twin_interpret(s):
-    """Interpret-mode kernel == jnp twin (same math, same guards), at a
-    padded and an exact-multiple size."""
-    t = _spd(s, 3, cond_boost=10.0)
-    c = jax.random.normal(jax.random.PRNGKey(11), (s,), jnp.float32)
-    want = sr_cg.cg_solve_jnp(t, c, iters=48)
-    got = sr_cg.sr_cg_solve(t, c, iters=48, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=2e-5, atol=2e-6
-    )
 
 
 def test_kernel_exact_convergence_guard():
@@ -55,7 +41,7 @@ def test_kernel_exact_convergence_guard():
     the 0/0 guards freeze the iterate instead of NaNing."""
     t = jnp.eye(8, dtype=jnp.float32) * 2.0
     c = jnp.ones((8,), jnp.float32)
-    got = sr_cg.sr_cg_solve(t, c, iters=64, interpret=True)
+    got = cg_solve(t, c, iters=64)
     np.testing.assert_allclose(np.asarray(got), 0.5 * np.ones(8), rtol=1e-6)
     assert np.isfinite(np.asarray(got)).all()
 
@@ -63,8 +49,8 @@ def test_kernel_exact_convergence_guard():
 def test_direction_tree_cg_matches_chol():
     """minsr_direction_tree(solver='cg') vs the exact Cholesky solve on a
     real ansatz jacobian: agreement far inside the SR noise floor."""
-    from rnnwavefunctions_tpu import PRNN1D
-    from rnnwavefunctions_tpu.vmc import minsr
+    from rnnwavefunctions import PRNN1D
+    from rnnwavefunctions.vmc import minsr
 
     ansatz = PRNN1D(num_sites=6, units=(6,))
     params = ansatz.init(jax.random.PRNGKey(0))
@@ -90,8 +76,8 @@ def test_direction_tree_cg_matches_chol():
 def test_trainer_converges_with_cg_solver():
     """Public-API minSR training with the default sr_solver='cg' reaches
     the same sub-1% N=8 TFIM accuracy as the Cholesky path."""
-    from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.ed import exact
+    from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+    from rnnwavefunctions.ed import exact
 
     n = 8
     e_exact = exact.ground_state_energy(exact.tfim1d_dense(n, 1.0))
@@ -110,7 +96,7 @@ def test_trainer_converges_with_cg_solver():
 
 
 def test_trainer_rejects_bad_solver():
-    from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+    from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
 
     with pytest.raises(ValueError, match="sr_solver"):
         VMCTrainer(
@@ -125,10 +111,8 @@ def test_trainer_rejects_bad_solver():
 
 
 def test_sr_cg_solve_float64_routes_to_jnp():
-    """float64 systems (--dtype float64 minSR runs) must take the jnp twin
-    — the Pallas kernel is f32-only (hardcoded out_shape/guards), and the
-    f64 contract is 'jnp paths, no fused kernels'.  The dispatch checks
-    dtype BEFORE reaching the kernel, so this holds on every backend."""
+    """float64 systems (--dtype float64 minSR runs) are solved in float64
+    to float64 accuracy."""
     jax.config.update("jax_enable_x64", True)
     try:
         s = 24
@@ -137,7 +121,7 @@ def test_sr_cg_solve_float64_routes_to_jnp():
         ).astype(jnp.float64)
         t = (a @ a.T) / (2 * s) + 1e-2 * jnp.eye(s, dtype=jnp.float64)
         c = jax.random.normal(jax.random.PRNGKey(1), (s,)).astype(jnp.float64)
-        got = sr_cg.sr_cg_solve(t, c, iters=2 * s)
+        got = cg_solve(t, c, iters=2 * s)
         assert got.dtype == jnp.float64
         want = jax.scipy.linalg.cho_solve(
             jax.scipy.linalg.cho_factor(t, lower=True), c

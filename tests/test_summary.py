@@ -5,8 +5,8 @@ run_loop."""
 import jax
 import numpy as np
 
-from rnnwavefunctions_tpu import CRNNU1, MDRNN2D, PRNN1D
-from rnnwavefunctions_tpu.utils.summary import param_count, summarize_params
+from rnnwavefunctions import CRNNU1, MDRNN2D, PRNN1D
+from rnnwavefunctions.utils.summary import param_count, summarize_params
 
 
 def test_param_count_flagship_shapes():

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D
-from rnnwavefunctions_tpu.parallel import tensor as tp
-from rnnwavefunctions_tpu.parallel.mesh import DP_AXIS
-from rnnwavefunctions_tpu.vmc.loss import surrogate_loss
+from rnnwavefunctions import PRNN1D, TFIM1D
+from rnnwavefunctions.parallel import tensor as tp
+from rnnwavefunctions.parallel.mesh import DP_AXIS
+from rnnwavefunctions.vmc.loss import surrogate_loss
 
 UNITS = (16,)
 K = 4  # tp shards
@@ -27,7 +27,7 @@ def _mesh():
 
 
 def _setup(n=8, s=16):
-    ansatz = PRNN1D(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = PRNN1D(num_sites=n, units=UNITS)
     params = ansatz.init(jax.random.PRNGKey(0))
     samples = ansatz.sample(params, jax.random.PRNGKey(1), s)
     return ansatz, params, samples
@@ -139,11 +139,11 @@ def test_trainer_tp_matches_dp():
     """The PRODUCT path: ``VMCTrainer(config.tp=4)`` on a (2, 4) mesh must
     reproduce the dp-only trainer exactly — same drawn samples (tp members
     share the dp-folded key), same energies, same post-Adam parameters."""
-    from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import TrainConfig, VMCTrainer
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = PRNN1D(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = PRNN1D(num_sites=n, units=UNITS)
     ham = TFIM1D(num_sites=n, bx=1.0)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(num_samples=s, tp=K),
                        mesh=_mesh())
@@ -171,21 +171,21 @@ def test_trainer_tp_matches_dp():
 
 
 def test_trainer_tp_validation():
-    from rnnwavefunctions_tpu import CRNNU1, MDRNN2D, TFIM2D, TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.hamiltonians.j1j2 import J1J2
+    from rnnwavefunctions import CRNNU1, MDRNN2D, TFIM2D, TrainConfig, VMCTrainer
+    from rnnwavefunctions.hamiltonians.j1j2 import J1J2
     import pytest
 
     # CRNNU1 with a GRU trunk is tp-supported since round 4 — construction
     # must NOT raise
     VMCTrainer(
-        CRNNU1(num_sites=8, units=(16,), impl="jnp"),
+        CRNNU1(num_sites=8, units=(16,)),
         J1J2(num_sites=8, j2=0.2),
         TrainConfig(num_samples=16, tp=K),
         mesh=_mesh(),
     )
     with pytest.raises(ValueError, match="GRU-trunk"):
         VMCTrainer(
-            CRNNU1(num_sites=8, units=(16,), cell="lstm", impl="jnp"),
+            CRNNU1(num_sites=8, units=(16,), cell="lstm"),
             J1J2(num_sites=8, j2=0.2),
             TrainConfig(num_samples=16, tp=K),
             mesh=_mesh(),
@@ -193,7 +193,7 @@ def test_trainer_tp_validation():
     # MDRNN2D on grid TFIM2D is tp-supported since round 4 — construction
     # must NOT raise...
     VMCTrainer(
-        MDRNN2D(nx=4, ny=4, units=16, impl="jnp"),
+        MDRNN2D(nx=4, ny=4, units=16),
         TFIM2D(nx=4, ny=4, bx=3.0, encoding="grid"),
         TrainConfig(num_samples=16, tp=K),
         mesh=_mesh(),
@@ -201,14 +201,14 @@ def test_trainer_tp_validation():
     # ...but only with the grid encoding (the 2D family consumes grids)
     with pytest.raises(ValueError, match="grid"):
         VMCTrainer(
-            MDRNN2D(nx=4, ny=4, units=16, impl="jnp"),
+            MDRNN2D(nx=4, ny=4, units=16),
             TFIM2D(nx=4, ny=4, bx=3.0, encoding="flat"),
             TrainConfig(num_samples=16, tp=K),
             mesh=_mesh(),
         )
     with pytest.raises(ValueError, match="divisible"):
         VMCTrainer(
-            PRNN1D(num_sites=8, units=(10,), impl="jnp"),
+            PRNN1D(num_sites=8, units=(10,)),
             TFIM1D(num_sites=8, bx=1.0),
             TrainConfig(num_samples=16, tp=K),
             mesh=_mesh(),
@@ -276,9 +276,9 @@ def test_tp_vmc_step_trains():
 
 
 def _setup_crnn(n=8, s=16):
-    from rnnwavefunctions_tpu import CRNNU1
+    from rnnwavefunctions import CRNNU1
 
-    ansatz = CRNNU1(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = CRNNU1(num_sites=n, units=UNITS)
     params = ansatz.init(jax.random.PRNGKey(0))
     samples = ansatz.sample(params, jax.random.PRNGKey(1), s)
     return ansatz, params, samples
@@ -300,7 +300,7 @@ def test_tp_crnn_log_amp_matches_unsharded():
         jax.shard_map(fn, mesh=mesh, in_specs=(P(), P(DP_AXIS)),
                       out_specs=P(DP_AXIS), check_vma=False)
     )(params, samples)
-    want_re, want_im = ansatz._log_amp_parts_jnp(params, samples)
+    want_re, want_im = ansatz.log_amp_parts(params, samples)
     np.testing.assert_allclose(np.asarray(re), np.asarray(want_re), atol=1e-5)
     np.testing.assert_allclose(np.asarray(im), np.asarray(want_im), atol=1e-5)
 
@@ -356,7 +356,7 @@ def test_tp_crnn_inner_grad_pmean_matches_unsharded():
     )(params, samples, w_re, w_im)
 
     def loss_ref(p):
-        re, im = ansatz._log_amp_parts_jnp(p, samples)
+        re, im = ansatz.log_amp_parts(p, samples)
         return jnp.mean(re * w_re + im * w_im)
 
     g2 = jax.grad(loss_ref)(params)
@@ -369,12 +369,12 @@ def test_trainer_tp_crnn_matches_dp():
     """The PRODUCT path for the complex family: ``VMCTrainer(tp=4)`` with
     CRNNU1/J1J2 on a (2, 4) mesh reproduces the dp-only trainer — same
     energies (Re and Im), same post-Adam parameters."""
-    from rnnwavefunctions_tpu import CRNNU1, TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.hamiltonians.j1j2 import J1J2
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import CRNNU1, TrainConfig, VMCTrainer
+    from rnnwavefunctions.hamiltonians.j1j2 import J1J2
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = CRNNU1(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = CRNNU1(num_sites=n, units=UNITS)
     ham = J1J2(num_sites=n, j2=0.2)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(num_samples=s, tp=K),
                        mesh=_mesh())
@@ -407,11 +407,11 @@ def test_trainer_tp_minsr_matches_dp():
     assemble through the same pmean-over-tp contract as the loss gradient
     (linearity), so the tp trainer with optimizer='minsr' must reproduce
     the dp-only minSR trainer — same energies, same post-SGD parameters."""
-    from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import TrainConfig, VMCTrainer
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = PRNN1D(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = PRNN1D(num_sites=n, units=UNITS)
     ham = TFIM1D(num_sites=n, bx=1.0)
     kw = dict(num_samples=s, optimizer="minsr", learning_rate=5e-2)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(tp=K, **kw), mesh=_mesh())
@@ -439,12 +439,12 @@ def test_trainer_tp_minsr_matches_dp():
 def test_trainer_tp_minsr_crnn_matches_dp():
     """The complex family: tp minSR rows come from vmap(jacrev) through the
     two tp-sharded heads; parity vs the dp-only complex minSR trainer."""
-    from rnnwavefunctions_tpu import CRNNU1, TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.hamiltonians.j1j2 import J1J2
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import CRNNU1, TrainConfig, VMCTrainer
+    from rnnwavefunctions.hamiltonians.j1j2 import J1J2
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = CRNNU1(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = CRNNU1(num_sites=n, units=UNITS)
     ham = J1J2(num_sites=n, j2=0.2)
     kw = dict(num_samples=s, optimizer="minsr", learning_rate=5e-2)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(tp=K, **kw), mesh=_mesh())
@@ -472,11 +472,11 @@ def test_trainer_tp_stack_matches_dp():
     """Multi-layer GRU stacks under tp: the sharded trunk loops layers with
     deeper layers consuming the all-gathered previous-layer output
     (parallel/tensor._tp_trunk_step) — parity vs dp-only on units=(8, 8)."""
-    from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import TrainConfig, VMCTrainer
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = PRNN1D(num_sites=n, units=(8, 8), impl="jnp")
+    ansatz = PRNN1D(num_sites=n, units=(8, 8))
     ham = TFIM1D(num_sites=n, bx=1.0)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(num_samples=s, tp=K),
                        mesh=_mesh())
@@ -505,11 +505,11 @@ def test_tp_mdrnn_log_prob_matches_unsharded():
     (same flip wiring, psum'd head logits)."""
     from functools import partial
 
-    from rnnwavefunctions_tpu import MDRNN2D
-    from rnnwavefunctions_tpu.parallel import tensor as tpl
+    from rnnwavefunctions import MDRNN2D
+    from rnnwavefunctions.parallel import tensor as tpl
 
     nx, ny, u = 2, 3, 8
-    ansatz = MDRNN2D(nx=nx, ny=ny, units=u, impl="jnp")
+    ansatz = MDRNN2D(nx=nx, ny=ny, units=u)
     params = ansatz.init(jax.random.PRNGKey(0))
     samples = ansatz.sample(params, jax.random.PRNGKey(1), 10)
     want = ansatz.log_prob(params, samples)
@@ -536,11 +536,11 @@ def test_trainer_tp_mdrnn_matches_dp():
     MDRNN2D/TFIM2D-grid on a (2, 4) mesh reproduces the dp-only trainer —
     same drawn grids, same energies, same post-update parameters — for
     BOTH optimizers (adam and minsr)."""
-    from rnnwavefunctions_tpu import MDRNN2D, TFIM2D, TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import MDRNN2D, TFIM2D, TrainConfig, VMCTrainer
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     s = 16
-    ansatz = MDRNN2D(nx=2, ny=3, units=8, impl="jnp")
+    ansatz = MDRNN2D(nx=2, ny=3, units=8)
     ham = TFIM2D(nx=2, ny=3, bx=3.0, encoding="grid")
     key = jax.random.PRNGKey(11)
     for opt_kw, tol in [
@@ -577,11 +577,11 @@ def test_trainer_tp_lstm_matches_dp():
     """LSTM trunks under tp: 4 packed gate blocks column-sharded, the cell
     state c purely shard-local (parallel/tensor._tp_lstm_apply) — parity vs
     dp-only for a 2-layer LSTM stack."""
-    from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import TrainConfig, VMCTrainer
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = PRNN1D(num_sites=n, units=(8, 8), cell="lstm", impl="jnp")
+    ansatz = PRNN1D(num_sites=n, units=(8, 8), cell="lstm")
     ham = TFIM1D(num_sites=n, bx=1.0)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(num_samples=s, tp=K),
                        mesh=_mesh())
@@ -611,11 +611,11 @@ def test_trainer_tp_evaluate_observables_matches_dp():
     members redundantly compute the identical measurement (same dp-folded
     key), so the result must equal the dp-only trainer's on a same-dp-size
     mesh."""
-    from rnnwavefunctions_tpu import TrainConfig, VMCTrainer
-    from rnnwavefunctions_tpu.parallel import mesh as mesh_lib
+    from rnnwavefunctions import TrainConfig, VMCTrainer
+    from rnnwavefunctions.parallel import mesh as mesh_lib
 
     n, s = 8, 16
-    ansatz = PRNN1D(num_sites=n, units=UNITS, impl="jnp")
+    ansatz = PRNN1D(num_sites=n, units=UNITS)
     ham = TFIM1D(num_sites=n, bx=1.0)
     tr_tp = VMCTrainer(ansatz, ham, TrainConfig(num_samples=s, tp=K),
                        mesh=_mesh())

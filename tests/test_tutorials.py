@@ -1,7 +1,7 @@
 """The tutorial notebooks (reference L5 deliverable format) must execute:
 every code cell runs in order in a shared namespace, including the ED
 comparison assertions inside the cells (NUM_STEPS reduced for CI wall-time;
-the full budgets converge tighter, see BENCHMARKS.md)."""
+the full budgets converge tighter)."""
 
 import json
 import os

@@ -9,8 +9,8 @@ import jax
 import numpy as np
 import pytest
 
-from rnnwavefunctions_tpu import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
-from rnnwavefunctions_tpu.ed import exact
+from rnnwavefunctions import PRNN1D, TFIM1D, TrainConfig, VMCTrainer
+from rnnwavefunctions.ed import exact
 
 
 @pytest.mark.slow
